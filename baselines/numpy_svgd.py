@@ -1,7 +1,7 @@
 """Pure-NumPy SVGD oracle encoding the reference semantics exactly.
 
 This module is the correctness referee and host-CPU speed baseline for the
-TPU-native framework. It re-implements, in plain NumPy, the exact numerical
+JAX framework. It re-implements, in plain NumPy, the exact numerical
 semantics of the reference implementation (JamesBrofos/Stein):
 
 - SVGD direction ``phi = (K @ grads + dK) / n``

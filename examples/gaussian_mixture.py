@@ -22,11 +22,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from stein_tpu.utils.cache import enable_compilation_cache
-
-enable_compilation_cache()
-
-from stein_tpu import SVGDSampler, Adam
+from stein_jax.utils.cache import enable_compilation_cache
+from stein_jax import SVGDSampler, Adam
 
 
 def make_mixture(weights, spread=4.0, sigma=0.6):
@@ -47,6 +44,7 @@ def make_mixture(weights, spread=4.0, sigma=0.6):
 
 
 def main():
+    enable_compilation_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-particles", type=int, default=200)
     ap.add_argument("--n-iters", type=int, default=2000)

@@ -1,4 +1,4 @@
-"""Bayesian linear regression via SVGD — TPU-native port of the reference
+"""Bayesian linear regression via SVGD — port of the reference
 workload (reference: examples/linear_regression/main.py).
 
 Same model and hyperparameters: N(0,1) prior on weights, unit-variance
@@ -22,12 +22,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from stein_tpu.utils.cache import enable_compilation_cache
-
-enable_compilation_cache()
-
-from stein_tpu import SVGDSampler, Adam
-from stein_tpu.models import LinearRegressionModel
+from stein_jax.utils.cache import enable_compilation_cache
+from stein_jax import SVGDSampler, Adam
+from stein_jax.models import LinearRegressionModel
 
 
 def generate_data(seed=0, n=1000, k=1):
@@ -54,6 +51,7 @@ def load_csv_data(data_dir):
 
 
 def main():
+    enable_compilation_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-iters", type=int, default=500)
     ap.add_argument("--n-particles", type=int, default=50)
@@ -71,7 +69,9 @@ def main():
                     "from O(n_obs p) to O(p^2)")
     ap.add_argument("--precision", type=str, default="high",
                     choices=["high", "default", "highest"],
-                    help="model data-matmul precision: 'high' = f32-faithful\n(default); 'default' = the TPU's native bf16-input rate\n(~6e-4 phi class, see models/distributions.py)")
+                    help="model data-matmul precision: 'high' (default) and "
+                         "'default' run TF32 products on an H100, "
+                         "'highest' full f32 (models/distributions.py)")
     args = ap.parse_args()
 
     if args.data_dir:

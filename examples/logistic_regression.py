@@ -1,4 +1,4 @@
-"""Hierarchical Bayesian logistic regression via SVGD — TPU-native port of
+"""Hierarchical Bayesian logistic regression via SVGD — port of
 the reference workload (reference: examples/logistic_regression/main.py).
 
 Same model and hyperparameters: Gamma(1, 0.01) prior on precision alpha,
@@ -24,12 +24,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from stein_tpu.utils.cache import enable_compilation_cache
-
-enable_compilation_cache()
-
-from stein_tpu import SVGDSampler, Adam
-from stein_tpu.models import LogisticRegressionModel
+from stein_jax.utils.cache import enable_compilation_cache
+from stein_jax import SVGDSampler, Adam
+from stein_jax.models import LogisticRegressionModel
 
 
 def generate_data(seed=0, n=20000, n_feats=54):
@@ -56,6 +53,7 @@ def load_covertype(path):
 
 
 def main():
+    enable_compilation_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-iters", type=int, default=6000)
     ap.add_argument("--n-particles", type=int, default=100)
@@ -78,16 +76,9 @@ def main():
                          "Covertype (--data covertype.mat)")
     ap.add_argument("--precision", type=str, default="high",
                     choices=["high", "default", "highest"],
-                    help="model data-matmul precision: 'high' = f32-faithful\n(default); 'default' = the TPU's native bf16-input rate\n(~6e-4 phi class, see models/distributions.py)")
-    ap.add_argument("--step-impl", type=str, default="xla",
-                    choices=["xla", "fused_gram", "fused_model"],
-                    help="'xla' (default) = reference-faithful f32 path; "
-                         "'fused_gram' = one-kernel post-gradient tail; "
-                         "'fused_model' = the WHOLE step (sigmoid-"
-                         "likelihood gradients included) as one kernel "
-                         "via LogisticRegressionModel.inkernel_model — "
-                         "the fused tails' documented precision class "
-                         "(docs/DESIGN.md)")
+                    help="model data-matmul precision: 'high' (default) and "
+                         "'default' run TF32 products on an H100, "
+                         "'highest' full f32 (models/distributions.py)")
     args = ap.parse_args()
 
     if args.data:
@@ -111,28 +102,12 @@ def main():
     test_batch = {"X": jnp.asarray(X_test, jnp.float32),
                   "y": jnp.asarray(y_test, jnp.float32)}
 
-    fused_kw = {}
-    if args.step_impl != "xla":
-        # The fused steps carry the warm bisect median in the scan
-        # (docs/DESIGN.md); the posterior-level agreement of the
-        # in-kernel gradient path is pinned on-chip by
-        # tests_tpu::test_fused_model_logreg_posterior_statistics_on_chip.
-        fused_kw = dict(step_impl=args.step_impl, median="bisect",
-                        warm_median=True, median_impl="fused")
-        if args.step_impl == "fused_model":
-            fused_kw["inkernel_model"] = model.inkernel_model
-        if jax.default_backend() != "tpu":
-            # The fused steps are Pallas kernels, which off-TPU only
-            # run in interpret mode (slow but correct) — keeps the
-            # flag demonstrable on CPU.
-            fused_kw["pallas_interpret"] = True
     sampler = SVGDSampler(
         n_particles=args.n_particles,
         log_p=model.log_p,
         param_template=model.template(),
         gd=Adam(learning_rate=1e-1),
         key=jax.random.PRNGKey(args.seed),
-        **fused_kw,
     )
 
     def evaluate():

@@ -21,18 +21,16 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from stein_tpu.utils.cache import enable_compilation_cache
-
-enable_compilation_cache()
-
-from stein_tpu import SVGDSampler, Adam
-from stein_tpu.models import LogisticRegressionModel
-from stein_tpu.parallel import particle_mesh
-from stein_tpu.utils.metrics import MetricsLogger
-from stein_tpu.utils.recovery import train_with_recovery
+from stein_jax.utils.cache import enable_compilation_cache
+from stein_jax import SVGDSampler, Adam
+from stein_jax.models import LogisticRegressionModel
+from stein_jax.parallel import particle_mesh
+from stein_jax.utils.metrics import MetricsLogger
+from stein_jax.utils.recovery import train_with_recovery
 
 
 def main():
+    enable_compilation_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-iters", type=int, default=3000)
     ap.add_argument("--n-particles", type=int, default=128)

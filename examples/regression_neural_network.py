@@ -1,5 +1,5 @@
-"""Bayesian neural-network regression via SVGD — TPU-native port of the
-reference workload (reference: examples/regression_neural_network/main.py).
+"""Bayesian neural-network regression via SVGD — port of the reference
+workload (reference: examples/regression_neural_network/main.py).
 
 Same model and hyperparameters: 1 -> 100 -> 1 ReLU MLP, Gamma(1, 0.01)
 priors on the weight precision lambda and noise precision gamma, N(0,
@@ -32,12 +32,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from stein_tpu.utils.cache import enable_compilation_cache
-
-enable_compilation_cache()
-
-from stein_tpu import SVGDSampler, Adam
-from stein_tpu.models import BayesianNNModel
+from stein_jax.utils.cache import enable_compilation_cache
+from stein_jax import SVGDSampler, Adam
+from stein_jax.models import BayesianNNModel
 
 
 def generate_data(seed=0, n=20):
@@ -50,6 +47,7 @@ def generate_data(seed=0, n=20):
 
 
 def main():
+    enable_compilation_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-iters", type=int, default=10000)
     ap.add_argument("--n-particles", type=int, default=20)
@@ -65,13 +63,8 @@ def main():
                          "(see module docstring) — 10 lets the fit mode win")
     ap.add_argument("--tuned", action="store_true",
                     help="splat throughput_config(n, p) over the sampler "
-                         "(measured-best production options; what it picks "
-                         "depends on n: at the reference's default n=20 the "
-                         "fused_gram tail fits in VMEM even at p=303, while "
-                         "at n>=1000 the large-p branch selects the "
-                         "streaming Pallas tile + fused warm median, "
-                         "~11M updates/s — benchmarks/nn_phi_probe.py; "
-                         "default keeps the reference-faithful XLA step)")
+                         "(the warm bisect median; the default keeps the "
+                         "reference-faithful exact-median step)")
     args = ap.parse_args()
 
     X_train, y_train = generate_data(args.seed)
@@ -86,25 +79,12 @@ def main():
     rng = np.random.default_rng(args.seed + 1)
     tuned_kw = {}
     if args.tuned:
-        from stein_tpu import throughput_config
+        from stein_jax import throughput_config
         n_params = sum(
             int(np.prod(np.shape(leaf)))
             for leaf in jax.tree_util.tree_leaves(model.template())
         )
-        tuned_kw = throughput_config(args.n_particles, n_params,
-                                     model=model)
-        if jax.default_backend() != "tpu":
-            # The tuned configs select Pallas kernels, which off-TPU
-            # only run in interpret mode (slow but correct) — keeps
-            # --tuned demonstrable on CPU. The model's gradient kernel
-            # bakes its own interpret flag (the sampler's
-            # pallas_interpret cannot reach inside the callable), so
-            # rebuild it too.
-            tuned_kw["pallas_interpret"] = True
-            if "custom_grads" in tuned_kw:
-                tuned_kw["custom_grads"] = model.pallas_grads(
-                    interpret=True
-                )
+        tuned_kw = throughput_config(args.n_particles, n_params)
     sampler = SVGDSampler(
         n_particles=args.n_particles,
         log_p=model.log_p,

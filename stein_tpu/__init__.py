@@ -1,39 +1,15 @@
-"""stein_tpu — a TPU-native Stein Variational Gradient Descent engine.
+"""Former import name of stein_jax, kept so that existing imports keep
+working: every module of stein_jax is importable under this name as the
+same module object (``from <this name>.ops import rbf`` is
+``stein_jax.ops.rbf``)."""
 
-A from-scratch JAX/XLA/Pallas/pjit framework with the full capability surface
-of the reference SVGD library (JamesBrofos/Stein), redesigned TPU-first: the
-entire SVGD step is one jitted on-device program, the kernel matrix runs as
-blocked Pallas tiles for large particle counts, and particles shard across a
-device mesh with psum/all-gather collectives.
-"""
+import importlib
+import pkgutil
+import sys
 
-from .version import __version__
-from .api import (
-    SVGDSampler,
-    SVGDState,
-    SteinSampler,
-    throughput_config,
-)
-from .ops.optimizers import (
-    Adam,
-    Adagrad,
-    AdamGradientDescent,
-    AdagradGradientDescent,
-)
-from .kernels import SquaredExponentialKernel, InverseMultiquadricKernel
-from .ops.pallas_step import InKernelModel
+import stein_jax
 
-__all__ = [
-    "__version__",
-    "SVGDSampler",
-    "SVGDState",
-    "SteinSampler",
-    "throughput_config",
-    "InKernelModel",
-    "Adam",
-    "Adagrad",
-    "AdamGradientDescent",
-    "AdagradGradientDescent",
-    "SquaredExponentialKernel",
-    "InverseMultiquadricKernel",
-]
+for _info in pkgutil.walk_packages(stein_jax.__path__, "stein_jax."):
+    sys.modules[__name__ + _info.name[len("stein_jax"):]] = (
+        importlib.import_module(_info.name))
+sys.modules[__name__] = stein_jax

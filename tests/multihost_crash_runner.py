@@ -50,10 +50,10 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from stein_tpu import SVGDSampler, Adam
-from stein_tpu.models import LinearRegressionModel
-from stein_tpu.parallel import particle_mesh, replicate_batch
-from stein_tpu.utils.recovery import train_with_recovery
+from stein_jax import SVGDSampler, Adam
+from stein_jax.models import LinearRegressionModel
+from stein_jax.parallel import particle_mesh, replicate_batch
+from stein_jax.utils.recovery import train_with_recovery
 
 rng = np.random.default_rng(0)
 X = rng.normal(size=(40, 3))

@@ -3,7 +3,7 @@
 
 Each process owns 4 fake CPU devices; jax.distributed.initialize joins
 them into one 8-device global mesh over localhost gRPC — the same
-code path a real multi-host TPU slice uses (SURVEY.md §5 distributed
+code path a real multi-host deployment uses (SURVEY.md §5 distributed
 backend; BASELINE.json config #5)."""
 
 import os
@@ -33,9 +33,9 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from stein_tpu import SVGDSampler, Adam
-from stein_tpu.models import LinearRegressionModel
-from stein_tpu.parallel import particle_mesh, replicate_batch
+from stein_jax import SVGDSampler, Adam
+from stein_jax.models import LinearRegressionModel
+from stein_jax.parallel import particle_mesh, replicate_batch
 
 assert jax.process_count() == nproc
 assert jax.device_count() == 4 * nproc
@@ -161,7 +161,7 @@ np.testing.assert_allclose(
 # Diagnostics across the multi-controller mesh: aux scalars (replicated,
 # not fully addressable) must read back; KSD runs over the global
 # particles.
-from stein_tpu.utils.metrics import MetricsLogger
+from stein_jax.utils.metrics import MetricsLogger
 
 aux = sampler.train_on_batch(batch)
 m = MetricsLogger(log_every=0)
@@ -172,16 +172,15 @@ assert np.isfinite(ksd_val)
 
 print(f"MULTIHOST-OK-{pid}", flush=True)
 
-# Warm median + the streaming Pallas tile across processes: the warm
-# bracket/round counts psum over a particle axis that spans both
-# processes, and the rect Pallas kernel (interpret mode on these fake
-# CPU devices) consumes the cross-process gathered column block.
+# Warm median across processes: the warm bracket/round counts psum over
+# a particle axis that spans both processes, on the D rows of the
+# cross-process gathered column block.
 warm_p = SVGDSampler(
     n_particles=16, log_p=model.log_p,
     param_template=model.template(jnp.float64),
     gd=Adam(learning_rate=1e-1), theta=jnp.asarray(theta0),
     dtype=jnp.float64, mesh=mesh, median="bisect", warm_median=True,
-    warm_passes=8, kernel_impl="pallas", pallas_interpret=True,
+    warm_passes=8,
 )
 warm_p.run(batch, 4)
 warm_ref = SVGDSampler(
@@ -189,7 +188,7 @@ warm_ref = SVGDSampler(
     param_template=model.template(jnp.float64),
     gd=Adam(learning_rate=1e-1), theta=jnp.asarray(theta0),
     dtype=jnp.float64, median="bisect", warm_median=True,
-    warm_passes=8, kernel_impl="pallas", pallas_interpret=True,
+    warm_passes=8,
 )
 warm_ref.run(ref_batch, 4)
 np.testing.assert_allclose(
@@ -223,57 +222,40 @@ np.testing.assert_allclose(
     s2d_warm.samples, ref2d_warm.samples, rtol=1e-6, atol=1e-9
 )
 
-# step_impl='fused_shard' (r4) across the process boundary: the fused
-# tail split at its collectives — the bracket-pass kernel's counts psum
-# over gRPC, the quad-ary rounds psum per round, the streaming tile
-# consumes the cross-process gathered block, the clip norm psums
-# (interpret-mode kernels on these fake CPU devices). Verified against
-# the single-device fused_gram step — the SAME numerics class (in-kernel
-# centered Gram feeding median counts and tiles), computed locally in
-# this process.
-theta0_f = jnp.asarray(theta0, jnp.float32)
-batch_f = replicate_batch(
-    {"X": jnp.asarray(X, jnp.float32), "y": jnp.asarray(y, jnp.float32)},
-    mesh,
-)
-fs = SVGDSampler(
+# Ring circulation and the 2-D grid median across the process boundary:
+# comm='ring' ppermutes particle blocks over gRPC (no gather), and the
+# 2-D grid search's two batched psums cross the same boundary. Ring is
+# bitwise-equal in its medians to the all-gather search, so it tracks
+# the single-device warm run to sharded-vs-single tolerance; grid vs the
+# single-device rounds search is the width/2**warm_passes class.
+ring = SVGDSampler(
     n_particles=16, log_p=model.log_p,
-    param_template=model.template(jnp.float32),
-    gd=Adam(learning_rate=1e-1), theta=theta0_f, dtype=jnp.float32,
-    mesh=mesh, median="bisect", warm_median=True, warm_passes=8,
-    step_impl="fused_shard", pallas_interpret=True,
-    median_collectives="rounds",
+    param_template=model.template(jnp.float64),
+    gd=Adam(learning_rate=1e-1), theta=jnp.asarray(theta0),
+    dtype=jnp.float64, mesh=mesh, median="bisect", warm_median=True,
+    warm_passes=8, comm="ring",
 )
-fs.run(batch_f, 4)
-# The r5 GRID median (the fused_shard default): its two batched psums
-# cross the same real process boundary; grid-vs-rounds is the
-# width/256-bound class, not bitwise (tests/test_sharded.py pins the
-# single-process A/B tightly), so only the trajectory class is
-# asserted here.
-fs_grid = SVGDSampler(
+ring.run(batch, 4)
+ring_ref = SVGDSampler(
     n_particles=16, log_p=model.log_p,
-    param_template=model.template(jnp.float32),
-    gd=Adam(learning_rate=1e-1), theta=theta0_f, dtype=jnp.float32,
-    mesh=mesh, median="bisect", warm_median=True, warm_passes=8,
-    step_impl="fused_shard", pallas_interpret=True,
+    param_template=model.template(jnp.float64),
+    gd=Adam(learning_rate=1e-1), theta=jnp.asarray(theta0),
+    dtype=jnp.float64, median="bisect", warm_median=True, warm_passes=8,
+)
+ring_ref.run(ref_batch, 4)
+np.testing.assert_allclose(
+    ring.samples, ring_ref.samples, rtol=1e-9, atol=1e-12
+)
+s2d_grid = SVGDSampler(
+    n_particles=16, log_p=model8.log_p,
+    param_template=model8.template(jnp.float64),
+    gd=Adam(learning_rate=1e-1), theta=jnp.asarray(theta8),
+    dtype=jnp.float64, mesh=mesh2d, model_axis="model",
+    median="bisect", warm_median=True, warm_passes=8,
     median_collectives="grid",
 )
-fs_grid.run(batch_f, 4)
-fs_ref = SVGDSampler(
-    n_particles=16, log_p=model.log_p,
-    param_template=model.template(jnp.float32),
-    gd=Adam(learning_rate=1e-1), theta=theta0_f, dtype=jnp.float32,
-    median="bisect", warm_median=True, warm_passes=8,
-    step_impl="fused_gram", median_impl="fused", pallas_interpret=True,
-)
-fs_ref.run(
-    {"X": jnp.asarray(X, jnp.float32), "y": jnp.asarray(y, jnp.float32)},
-    4,
-)
+s2d_grid.run(batch8, 4)
 np.testing.assert_allclose(
-    fs.samples, fs_ref.samples, rtol=1e-4, atol=1e-7
+    s2d_grid.samples, ref2d_warm.samples, rtol=2e-2, atol=2e-4
 )
-np.testing.assert_allclose(
-    fs_grid.samples, fs.samples, rtol=2e-2, atol=2e-4
-)
-print(f"MULTIHOST-FUSED-SHARD-OK-{pid}", flush=True)
+print(f"MULTIHOST-RING-GRID-OK-{pid}", flush=True)

@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from stein_tpu import SVGDSampler, Adam
-from stein_tpu.models import LinearRegressionModel
-from stein_tpu.parallel import particle_mesh
+from stein_jax import SVGDSampler, Adam
+from stein_jax.models import LinearRegressionModel
+from stein_jax.parallel import particle_mesh
 
 
 def _setup(seed=0, n_particles=16, mesh=None):
@@ -51,7 +51,7 @@ def test_save_restore_resumes_identically(tmp_path):
     assert int(b.state.step) == 7
 
 
-@pytest.mark.skipif(jax.device_count() < 8, reason="needs 8 fake devices")
+@pytest.mark.usefixtures("eight_devices")
 def test_save_single_restore_sharded(tmp_path):
     """A single-device checkpoint restores onto a mesh-sharded sampler and
     the run continues to match the single-device run."""
@@ -84,7 +84,7 @@ def test_restore_leaf_reorder_rejected(tmp_path):
     leaves (e.g. a refactor swapping mu/nu) is rejected at restore rather
     than restored silently wrong."""
     import collections
-    from stein_tpu.utils.checkpoint import save_checkpoint, \
+    from stein_jax.utils.checkpoint import save_checkpoint, \
         restore_checkpoint
 
     A = collections.namedtuple("A", ["mu", "nu", "step"])
@@ -106,7 +106,7 @@ def test_restore_leaf_reorder_rejected(tmp_path):
 def test_metrics_resume_appends(tmp_path):
     """resume=True appends to the CSV across a crash-restart cycle instead
     of truncating the pre-crash history."""
-    from stein_tpu.utils.metrics import MetricsLogger
+    from stein_jax.utils.metrics import MetricsLogger
     a, batch, _, _ = _setup()
     csv_path = str(tmp_path / "metrics.csv")
     m1 = MetricsLogger(log_every=0, csv_path=csv_path, resume=True)
@@ -127,7 +127,7 @@ def test_metrics_resume_appends(tmp_path):
 
 
 def test_metrics_logger(tmp_path):
-    from stein_tpu.utils.metrics import MetricsLogger
+    from stein_jax.utils.metrics import MetricsLogger
     a, batch, _, _ = _setup()
     csv_path = str(tmp_path / "metrics.csv")
     m = MetricsLogger(log_every=1, csv_path=csv_path)
@@ -151,7 +151,7 @@ def test_metrics_logger(tmp_path):
 def test_train_with_recovery_resumes_after_crash(tmp_path):
     """Kill the loop mid-run; a fresh process-equivalent resumes from the
     checkpoint and finishes with exactly the no-crash trajectory."""
-    from stein_tpu.utils.recovery import train_with_recovery
+    from stein_jax.utils.recovery import train_with_recovery
 
     ckpt = str(tmp_path / "recov.npz")
     a, batch, model, theta0 = _setup(seed=9)
@@ -192,7 +192,7 @@ def test_train_with_recovery_resumes_after_crash(tmp_path):
 
 def test_recovery_divergence_detection(tmp_path):
     """NaN state must not overwrite the last good checkpoint."""
-    from stein_tpu.utils.recovery import train_with_recovery
+    from stein_jax.utils.recovery import train_with_recovery
 
     ckpt = str(tmp_path / "div.npz")
     a, batch, model, theta0 = _setup(seed=11)
@@ -220,7 +220,7 @@ def test_recovery_first_chunk_divergence_names_no_checkpoint(tmp_path):
     run must not claim a 'last good checkpoint' — none was written, and
     an operator restarting against the fictional path would silently
     start a brand-new run that replays the divergence."""
-    from stein_tpu.utils.recovery import train_with_recovery
+    from stein_jax.utils.recovery import train_with_recovery
 
     ckpt = str(tmp_path / "fresh.npz")
     a, batch, model, theta0 = _setup(seed=12)
@@ -241,7 +241,7 @@ def test_restore_rejects_checkpoint_without_meta(tmp_path):
     (pre-v2 / truncated / foreign file) must be rejected, not restored
     positionally with only shape checks — same-shaped leaves that
     swapped positions would restore silently wrong."""
-    from stein_tpu.utils.checkpoint import restore_checkpoint
+    from stein_jax.utils.checkpoint import restore_checkpoint
 
     a, batch, _, _ = _setup()
     a.train_on_batch(batch)
@@ -253,52 +253,64 @@ def test_restore_rejects_checkpoint_without_meta(tmp_path):
         restore_checkpoint(path, a.state)
 
 
-import pytest
+def _mesh(kind):
+    from jax.sharding import Mesh
+    devs = np.asarray(jax.devices()[:8])
+    if kind == "2d":
+        return Mesh(devs.reshape(4, 2), ("particles", "model"))
+    return Mesh(devs, ("particles",))
 
 
-@pytest.mark.parametrize("step_impl", ["fused", "fused_gram", "fused_glm",
-                                       "fused_model"])
-def test_save_restore_fused_step_sampler(tmp_path, step_impl):
-    """Checkpoint/resume with the fused step tails (incl. the r3
-    fused_gram / fused_glm / fused_model variants — same SVGDState
-    pytree), so a restored sampler must continue bit-identically through
-    chunked run() calls (each of which re-seeds the warm carry from the
-    restored particles)."""
+# Every sampler configuration that survives, by the options that reach it.
+CHECKPOINT_CONFIGS = {
+    "exact": dict(),
+    "subsample": dict(median="subsample", median_max_rows=16),
+    "binned": dict(median="binned"),
+    "warm_bisect": dict(median="bisect", warm_median=True),
+    "tile_warm": dict(median="bisect", warm_median=True,
+                      kernel_impl="pallas", pallas_interpret=True),
+    "mesh_all_gather_warm": dict(median="bisect", warm_median=True,
+                                 mesh="1d"),
+    "mesh_ring_warm": dict(median="bisect", warm_median=True, mesh="1d",
+                           comm="ring"),
+    "mesh_ring_binned": dict(median="binned", mesh="1d", comm="ring"),
+    "mesh_2d_grid": dict(median="bisect", warm_median=True, mesh="2d",
+                         model_axis="model", median_collectives="grid"),
+    "mesh_2d_rounds": dict(median="bisect", warm_median=True, mesh="2d",
+                           model_axis="model",
+                           median_collectives="rounds"),
+}
+
+
+@pytest.mark.parametrize("config", sorted(CHECKPOINT_CONFIGS))
+def test_save_restore_each_configuration(tmp_path, config):
+    """Checkpoint/resume through every surviving configuration (the same
+    SVGDState pytree): a restored sampler continues bit-identically
+    through chunked run() calls, each of which re-seeds the warm carry
+    from the restored particles."""
+    kw = dict(CHECKPOINT_CONFIGS[config])
+    if "mesh" in kw:
+        if jax.device_count() < 8:
+            pytest.skip("needs 8 fake CPU devices")
+        kw["mesh"] = _mesh(kw["mesh"])
     rng = np.random.default_rng(2)
     n, p = 48, 4
     X = rng.normal(size=(30, p))
-    if step_impl == "fused_model":
-        from stein_tpu.models import LogisticRegressionModel
-        model = LogisticRegressionModel(p, n_train=100, n_batch=30)
-        y = (X @ rng.normal(size=(p, 1)) > 0).astype(np.float64)
-        n_params = p + 1
-    else:
-        model = LinearRegressionModel(p)
-        y = X @ rng.normal(size=(p, 1))
-        n_params = p
+    y = X @ rng.normal(size=(p, 1))
+    model = LinearRegressionModel(p)
     batch = {"X": jnp.asarray(X, jnp.float32),
              "y": jnp.asarray(y, jnp.float32)}
-    if step_impl == "fused_glm":
-        batch = model.sufficient_batch(batch)
-    theta0 = jnp.asarray(rng.normal(size=(n, n_params)) * 0.01,
-                         jnp.float32)
+    theta0 = jnp.asarray(rng.normal(size=(n, p)) * 0.01, jnp.float32)
 
     def make():
-        kw = {}
-        if step_impl == "fused_glm":
-            kw["quadratic_form"] = model.quadratic_form
-        if step_impl == "fused_model":
-            kw["inkernel_model"] = model.inkernel_model
         return SVGDSampler(
             n_particles=n, log_p=model.log_p,
-            param_template=model.template(), gd=Adam(learning_rate=1e-1,
-                                                     decay=0.99),
-            theta=theta0, median="bisect", warm_median=True,
-            warm_passes=6, step_impl=step_impl, pallas_interpret=True,
-            **kw,
+            param_template=model.template(),
+            gd=Adam(learning_rate=1e-1, decay=0.99), theta=theta0,
+            warm_passes=6, **kw,
         )
 
-    ckpt = str(tmp_path / f"{step_impl}.npz")
+    ckpt = str(tmp_path / f"{config}.npz")
     a = make()
     a.run(batch, 5)
     a.save(ckpt)

@@ -1,16 +1,42 @@
 """Reference-compatible import paths and converter semantics."""
 
+import importlib
+from pathlib import Path
+
 import numpy as np
+import pytest
 import jax.numpy as jnp
+
+_ROOT = Path(__file__).resolve().parents[1]
+
+
+def _former_names():
+    """Packages at the repository root that alias stein_jax under a
+    former import name (their __init__ says so)."""
+    return sorted(d.name for d in _ROOT.iterdir()
+                  if (d / "__init__.py").is_file()
+                  and "Former import name" in (d / "__init__.py").read_text())
+
+
+@pytest.mark.parametrize("sub", ["", ".api", ".ops.rbf", ".ops.pallas_svgd",
+                                 ".parallel.sharded", ".models"])
+def test_former_import_name_is_stein_jax(sub):
+    """Code written against the package's former name keeps working: its
+    modules are stein_jax's own module objects, not copies."""
+    names = _former_names()
+    assert names
+    for name in names:
+        assert (importlib.import_module(name + sub)
+                is importlib.import_module("stein_jax" + sub))
 
 
 def test_reference_import_paths():
-    from stein_tpu.samplers import SteinSampler
-    from stein_tpu.optimizers import (
+    from stein_jax.samplers import SteinSampler
+    from stein_jax.optimizers import (
         AdamGradientDescent, AdagradGradientDescent,
     )
-    from stein_tpu.kernels import SquaredExponentialKernel
-    from stein_tpu.utilities import (
+    from stein_jax.kernels import SquaredExponentialKernel
+    from stein_jax.utilities import (
         convert_dictionary_to_array, convert_array_to_dictionary,
         compute_median,
     )
@@ -24,7 +50,7 @@ def test_reference_import_paths():
 
 
 def test_converters_roundtrip_sorted_layout():
-    from stein_tpu.utilities import (
+    from stein_jax.utilities import (
         convert_dictionary_to_array, convert_array_to_dictionary,
     )
     rng = np.random.default_rng(0)
@@ -51,15 +77,15 @@ def test_converters_roundtrip_sorted_layout():
 
 
 def test_compute_median_alias():
-    from stein_tpu.utilities import compute_median
+    from stein_jax.utilities import compute_median
     x = jnp.asarray([3.0, 1.0, 2.0, 10.0])
     assert float(compute_median(x)) == 2.5
 
 
 def test_save_restore_without_npz_suffix(tmp_path):
     import jax, numpy as np
-    from stein_tpu import SVGDSampler, Adam
-    from stein_tpu.models import LinearRegressionModel
+    from stein_jax import SVGDSampler, Adam
+    from stein_jax.models import LinearRegressionModel
     rng = np.random.default_rng(0)
     X = rng.normal(size=(20, 2)); y = X @ rng.normal(size=(2, 1))
     model = LinearRegressionModel(2)
@@ -78,8 +104,8 @@ def test_save_restore_without_npz_suffix(tmp_path):
 
 def test_donate_false_keeps_state_references():
     import jax, numpy as np
-    from stein_tpu import SVGDSampler, Adam
-    from stein_tpu.models import LinearRegressionModel
+    from stein_jax import SVGDSampler, Adam
+    from stein_jax.models import LinearRegressionModel
     rng = np.random.default_rng(1)
     X = rng.normal(size=(20, 2)); y = X @ rng.normal(size=(2, 1))
     model = LinearRegressionModel(2)
@@ -95,9 +121,9 @@ def test_donate_false_keeps_state_references():
 
 def test_option_guards():
     import pytest, jax
-    from stein_tpu import SVGDSampler, Adam, InverseMultiquadricKernel
-    from stein_tpu.models import LinearRegressionModel
-    from stein_tpu.parallel import particle_mesh
+    from stein_jax import SVGDSampler, Adam, InverseMultiquadricKernel
+    from stein_jax.models import LinearRegressionModel
+    from stein_jax.parallel import particle_mesh
     model = LinearRegressionModel(2)
     common = dict(n_particles=8, log_p=model.log_p,
                   param_template=model.template(jnp.float64),
@@ -120,16 +146,15 @@ def test_option_guards():
         SVGDSampler(mesh=mesh, kernel_impl="pallas", **common)
 
 
-import jax as _jax
 import pytest as _pytest
 
 
-@_pytest.mark.skipif(_jax.device_count() < 8, reason="needs 8 fake devices")
+@_pytest.mark.usefixtures("eight_devices")
 def test_mesh_remat_matches_plain():
     import jax, numpy as np
-    from stein_tpu import SVGDSampler, Adam
-    from stein_tpu.models import LinearRegressionModel
-    from stein_tpu.parallel import particle_mesh
+    from stein_jax import SVGDSampler, Adam
+    from stein_jax.models import LinearRegressionModel
+    from stein_jax.parallel import particle_mesh
     rng = np.random.default_rng(2)
     X = rng.normal(size=(20, 2)); y = X @ rng.normal(size=(2, 1))
     model = LinearRegressionModel(2)

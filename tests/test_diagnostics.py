@@ -5,9 +5,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from stein_tpu import SVGDSampler, Adam
-from stein_tpu.models import LinearRegressionModel
-from stein_tpu.ops.diagnostics import ksd_rbf
+from stein_jax import SVGDSampler, Adam
+from stein_jax.models import LinearRegressionModel
+from stein_jax.ops.diagnostics import ksd_rbf
 from baselines.numpy_svgd import pairwise_sq_dists
 
 
@@ -71,7 +71,7 @@ def test_streaming_ksd_matches_dense(monkeypatch):
     must equal the dense form — same arithmetic, different matmul
     partitioning. Forced here by lowering the threshold; includes an
     n not divisible by block_rows (remainder path) and both statistics."""
-    from stein_tpu.ops import diagnostics
+    from stein_jax.ops import diagnostics
 
     rng = np.random.default_rng(2)
     for n in (64, 71):

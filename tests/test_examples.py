@@ -78,8 +78,8 @@ def test_regression_neural_network_mse_falls(capsys, monkeypatch):
 
 
 def test_regression_neural_network_tuned_flag(capsys, monkeypatch):
-    """--tuned splats throughput_config over the sampler (fused_gram at
-    this tiny shape, interpret mode on CPU) and must learn the same."""
+    """--tuned splats throughput_config over the sampler (the warm
+    bisect median at this tiny shape) and must learn the same."""
     out = _run(
         "examples/regression_neural_network.py",
         ["--n-iters", "200", "--n-particles", "4", "--n-hidden", "8",

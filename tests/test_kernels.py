@@ -7,14 +7,14 @@ import jax
 import jax.numpy as jnp
 
 from baselines import numpy_svgd
-from stein_tpu import SVGDSampler, Adam
-from stein_tpu.kernels import (
+from stein_jax import SVGDSampler, Adam
+from stein_jax.kernels import (
     SquaredExponentialKernel,
     InverseMultiquadricKernel,
     generic_svgd_phi,
 )
-from stein_tpu.models import LinearRegressionModel
-from stein_tpu.ops import rbf
+from stein_jax.models import LinearRegressionModel
+from stein_jax.ops import rbf
 
 
 def test_rbf_kernel_and_grad_matches_oracle():
@@ -147,7 +147,7 @@ def test_imq_invalid_params_raise():
     attraction (silently wrong posterior geometry) and c == 0 puts inf
     on the kernel diagonal — both must fail at construction."""
     import pytest
-    from stein_tpu.kernels import InverseMultiquadricKernel
+    from stein_jax.kernels import InverseMultiquadricKernel
 
     with pytest.raises(ValueError, match="beta < 0"):
         InverseMultiquadricKernel(beta=0.5)

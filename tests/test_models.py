@@ -8,13 +8,13 @@ import jax.numpy as jnp
 from scipy.special import gammaln as scipy_gammaln
 
 from baselines.numpy_svgd import NumpySVGD, NumpyAdam
-from stein_tpu import SVGDSampler, Adam
-from stein_tpu.models import (
+from stein_jax import SVGDSampler, Adam
+from stein_jax.models import (
     LinearRegressionModel,
     LogisticRegressionModel,
     BayesianNNModel,
 )
-from stein_tpu.utils.ravel import template_unraveler
+from stein_jax.utils.ravel import template_unraveler
 
 
 def _np_normal_logpdf(x, loc, scale):
@@ -181,11 +181,11 @@ def test_nn_golden_trajectory_vs_oracle():
 
 def test_model_precision_option():
     """precision='default'/'high'/'highest' resolve to lax.Precision and
-    give identical log_p on CPU (precision only matters on TPU MXUs)."""
+    give identical log_p on CPU (precision only matters on accelerators)."""
     import jax
     import numpy as np
     import jax.numpy as jnp
-    from stein_tpu.models import LinearRegressionModel
+    from stein_jax.models import LinearRegressionModel
 
     batch = {"X": jnp.asarray(np.ones((6, 4))),
              "y": jnp.asarray(np.ones((6, 1)))}
@@ -208,8 +208,8 @@ def test_linreg_sufficient_stats_exact():
     import jax
     import numpy as np
     import jax.numpy as jnp
-    from stein_tpu import SVGDSampler, Adam
-    from stein_tpu.models import LinearRegressionModel
+    from stein_jax import SVGDSampler, Adam
+    from stein_jax.models import LinearRegressionModel
 
     rng = np.random.default_rng(3)
     p = 5
@@ -242,54 +242,14 @@ def test_linreg_sufficient_stats_exact():
                                atol=1e-10)
 
 
-def test_pallas_grads_match_autodiff():
-    """BayesianNNModel.pallas_grads (the hand-derived elementwise
-    backward as one Pallas kernel — SVGDSampler's custom_grads hook)
-    must reproduce vmap(value_and_grad(log_p)) to f32 reassociation
-    tolerance, including the Gamma-hyperprior and /n_train scalings,
-    across feature counts and particle counts spanning the kernel's
-    row-block grid (the n > block_rows case exercises padding)."""
-    from stein_tpu.models import BayesianNNModel
-    from stein_tpu.utils.ravel import template_unraveler
-
-    rng = np.random.default_rng(0)
-    for n, B, f, H in ((64, 20, 1, 100), (600, 12, 3, 50)):
-        model = BayesianNNModel(f, H, n_train=5 * B, n_batch=B,
-                                prior_beta=10.0)
-        n_params, unravel = template_unraveler(model.template())
-        theta = jnp.asarray(rng.normal(size=(n, n_params)) * 0.3,
-                            jnp.float32)
-        X = rng.uniform(size=(B, f)).astype(np.float32)
-        y = (np.cos(10 * X[:, :1]) * (5 * X[:, :1])
-             + rng.normal(size=(B, 1)) * 0.1)
-        batch = {"X": jnp.asarray(X, jnp.float32),
-                 "y": jnp.asarray(y, jnp.float32)}
-        ga = jax.vmap(
-            jax.value_and_grad(
-                lambda row, b: model.log_p(unravel(row), b)
-            ),
-            in_axes=(0, None),
-        )
-        lp_ref, g_ref = ga(theta, batch)
-        grad_all = model.pallas_grads(interpret=True)
-        lp, g = grad_all(theta, batch, block_rows=256)
-        np.testing.assert_allclose(
-            np.asarray(lp), np.asarray(lp_ref), rtol=2e-5, atol=1e-5
-        )
-        scale = np.abs(np.asarray(g_ref)).max()
-        np.testing.assert_allclose(
-            np.asarray(g), np.asarray(g_ref), atol=2e-5 * scale
-        )
-
-
 def test_custom_grads_sampler_matches_autodiff():
-    """A sampler driven by the Pallas gradient kernel (custom_grads=)
-    tracks the autodiff sampler over several warm-scan steps (interpret
-    mode: exact f32 kernels; only fp reassociation differs), and the
+    """A sampler driven by a model-supplied gradient stage (custom_grads=)
+    tracks the autodiff sampler over several warm-scan steps, and the
     option surface fails loudly where the hook cannot apply."""
     import pytest
     from jax.sharding import Mesh
-    from stein_tpu.models import BayesianNNModel
+    from stein_jax.models import BayesianNNModel
+    from stein_jax.utils.ravel import template_unraveler
 
     rng = np.random.default_rng(1)
     n, B, f, H = 128, 16, 1, 20
@@ -298,6 +258,13 @@ def test_custom_grads_sampler_matches_autodiff():
     y = np.cos(10 * X) * (5 * X) + rng.normal(size=(B, 1)) * 0.1
     batch = {"X": jnp.asarray(X, jnp.float32),
              "y": jnp.asarray(y, jnp.float32)}
+    _, unravel = template_unraveler(model.template())
+
+    @jax.jit
+    def hook(theta, batch):
+        return jax.vmap(jax.value_and_grad(
+            lambda row, b: model.log_p(unravel(row), b)),
+            in_axes=(0, None))(theta, batch)
 
     def make(**kw):
         return SVGDSampler(
@@ -308,22 +275,18 @@ def test_custom_grads_sampler_matches_autodiff():
         )
 
     a = make()
-    b = make(custom_grads=model.pallas_grads(interpret=True))
+    b = make(custom_grads=hook)
     a.run(batch, 5)
     b.run(batch, 5)
     np.testing.assert_allclose(b.samples, a.samples, rtol=2e-4,
                                atol=1e-6)
 
     with pytest.raises(ValueError, match="custom_grads"):
-        make(custom_grads=model.pallas_grads(interpret=True), remat=True)
-    # 1-D meshes ACCEPT the hook since r5 (it is row-local; parity
-    # pinned by tests/test_sharded.py::test_mesh_custom_grads_...);
+        make(custom_grads=hook, remat=True)
+    # 1-D meshes accept the hook (it is row-local; parity pinned by
+    # tests/test_sharded.py::test_mesh_custom_grads_matches_single);
     # only 2-D meshes refuse.
     m2 = Mesh(np.asarray(jax.devices()[:2]).reshape(1, 2),
               ("particles", "model"))
     with pytest.raises(ValueError, match="1-D particle"):
-        make(custom_grads=model.pallas_grads(interpret=True),
-             mesh=m2, model_axis="model")
-    with pytest.raises(ValueError, match="custom_grads"):
-        make(custom_grads=model.pallas_grads(interpret=True),
-             step_impl="fused_gram", median_impl="fused")
+        make(custom_grads=hook, mesh=m2, model_axis="model")

@@ -60,7 +60,7 @@ def test_two_process_mesh_matches_single_device(tmp_path):
     for pid, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"proc {pid} failed:\n{out}"
         assert f"MULTIHOST-OK-{pid}" in out, out
-        assert f"MULTIHOST-FUSED-SHARD-OK-{pid}" in out, out
+        assert f"MULTIHOST-RING-GRID-OK-{pid}" in out, out
 
     # Process 0 wrote the single shared global checkpoint.
     assert os.path.exists(ckpt)

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import pytest
 
 from baselines import numpy_svgd
-from stein_tpu.ops import rbf
-from stein_tpu.ops.median import (
+from stein_jax.ops import rbf
+from stein_jax.ops.median import (
     exact_median,
     subsampled_sq_dist_median,
     binned_median,
@@ -93,7 +93,7 @@ def test_binned_median_nondivisible_blocks():
 
 
 def test_bisect_median_exact_small():
-    from stein_tpu.ops.median import bisect_median
+    from stein_jax.ops.median import bisect_median
     rng = np.random.default_rng(12)
     theta = rng.normal(size=(100, 7))
     D = numpy_svgd.pairwise_sq_dists(theta)
@@ -104,7 +104,7 @@ def test_bisect_median_exact_small():
 
 
 def test_bisect_median_subsampled_close():
-    from stein_tpu.ops.median import bisect_median
+    from stein_jax.ops.median import bisect_median
     rng = np.random.default_rng(13)
     theta = rng.normal(size=(512, 7))
     D = numpy_svgd.pairwise_sq_dists(theta)
@@ -117,8 +117,8 @@ def test_sampler_bisect_median_mode():
     """median='bisect' end-to-end tracks the exact-median sampler when the
     subsample covers all rows (medians then agree to fp resolution)."""
     import jax
-    from stein_tpu import SVGDSampler, Adam
-    from stein_tpu.models import LinearRegressionModel
+    from stein_jax import SVGDSampler, Adam
+    from stein_jax.models import LinearRegressionModel
     rng = np.random.default_rng(14)
     X = rng.normal(size=(40, 3))
     y = X @ rng.normal(size=(3, 1))
@@ -155,7 +155,7 @@ def test_binned_median_no_f32_saturation_at_large_n():
 
 
 def test_warm_bisect_median():
-    from stein_tpu.ops.median import warm_bisect_median, bisect_median
+    from stein_jax.ops.median import warm_bisect_median, bisect_median
     rng = np.random.default_rng(20)
     theta = rng.normal(size=(200, 5))
     D = numpy_svgd.pairwise_sq_dists(theta)
@@ -193,8 +193,8 @@ def test_bisect_on_D_matches_theta_entry():
     materialised D) must equal the theta-based ones bitwise: the strided
     row subsample selects the same rows and the same-precision Gram gives
     the same values."""
-    from stein_tpu.ops import rbf
-    from stein_tpu.ops.median import (
+    from stein_jax.ops import rbf
+    from stein_jax.ops.median import (
         bisect_median, bisect_median_on_D,
         warm_bisect_median, warm_bisect_median_on_D,
     )
@@ -213,8 +213,8 @@ def test_bisect_on_D_matches_theta_entry():
 
 def test_warm_median_sampler_tracks_cold():
     import jax
-    from stein_tpu import SVGDSampler, Adam
-    from stein_tpu.models import LinearRegressionModel
+    from stein_jax import SVGDSampler, Adam
+    from stein_jax.models import LinearRegressionModel
     rng = np.random.default_rng(21)
     X = rng.normal(size=(40, 3))
     y = X @ rng.normal(size=(3, 1))
@@ -244,7 +244,7 @@ def test_warm_median_sampler_tracks_cold():
 def test_bisect_quad_branch_accuracy():
     """Single-rank quad-ary branch (total > 100k): vs the exact order
     statistic."""
-    from stein_tpu.ops.median import bisect_median
+    from stein_jax.ops.median import bisect_median
     rng = np.random.default_rng(22)
     theta = rng.normal(size=(600, 5))          # total = 512*600 = 307k
     D = numpy_svgd.pairwise_sq_dists(theta)
@@ -267,7 +267,7 @@ def test_warm_search_error_bound_property():
     random scales, shapes, and hint regimes — including hints that land
     in each bracket band and invalid hints that must fall through."""
     import numpy as np
-    from stein_tpu.ops.median import DEFAULT_BRACKETS, _warm_search
+    from stein_jax.ops.median import DEFAULT_BRACKETS, _warm_search
 
     rng = np.random.default_rng(0)
     for trial in range(12):

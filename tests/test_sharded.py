@@ -7,14 +7,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from stein_tpu import SVGDSampler, Adam, Adagrad
-from stein_tpu.models import LinearRegressionModel, BayesianNNModel
-from stein_tpu.parallel import particle_mesh
+from stein_jax import SVGDSampler, Adam, Adagrad
+from stein_jax.models import LinearRegressionModel, BayesianNNModel
+from stein_jax.parallel import particle_mesh
 
 
-requires_8_devices = pytest.mark.skipif(
-    jax.device_count() < 8, reason="needs 8 fake CPU devices"
-)
+requires_8_devices = pytest.mark.usefixtures("eight_devices")
 
 
 def _linreg(seed=0, n_obs=40, n_feats=3, n_particles=16):
@@ -105,7 +103,7 @@ def test_sharded_bayesian_nn_matches_single():
     y = np.cos(10 * X) * (5 * X) + rng.normal(size=(20, 1)) * 0.1
     model = BayesianNNModel(1, 16, 20, 20)
     batch = {"X": jnp.asarray(X), "y": jnp.asarray(y)}
-    from stein_tpu.utils.ravel import template_unraveler
+    from stein_jax.utils.ravel import template_unraveler
     n_params, _ = template_unraveler(model.template(jnp.float64))
     theta0 = rng.normal(size=(n_particles, n_params)) * 0.01
     mesh = particle_mesh(jax.devices()[:8])
@@ -174,7 +172,7 @@ def test_sharded_imq_matches_single_device():
     """Custom weights-kernel (IMQ) on a 1-D particle mesh must reproduce
     the single-device generic path (kernels.generic_svgd_phi) exactly —
     same exact median, same fp contraction order."""
-    from stein_tpu.kernels import InverseMultiquadricKernel
+    from stein_jax.kernels import InverseMultiquadricKernel
     theta0, model, batch = _linreg()
     mesh = particle_mesh(jax.devices()[:8])
     kern = InverseMultiquadricKernel(c=1.0, beta=-0.5)
@@ -194,7 +192,7 @@ def test_sharded_imq_matches_single_device():
 def test_ring_imq_matches_all_gather():
     """IMQ through the ring generic pass (ppermute circulation) tracks the
     all_gather IMQ path with the same binned median."""
-    from stein_tpu.kernels import InverseMultiquadricKernel
+    from stein_jax.kernels import InverseMultiquadricKernel
     theta0, model, batch = _linreg(n_particles=64)
     mesh = particle_mesh(jax.devices()[:8])
     kern = InverseMultiquadricKernel(c=1.0, beta=-0.5)
@@ -234,8 +232,8 @@ def test_sharded_exact_median_gather_guard():
 def test_sharded_warm_matches_single_warm():
     """warm_median on a 1-D mesh: the scan loops carry the previous
     median and refine it with psum'd counts
-    (ops/median.sharded_warm_bisect_median). With the row subsample
-    covering all rows the warm medians are bitwise equal to single-chip,
+    (ops/median.sharded_warm_bisect_median_on_D). With the row subsample
+    covering all rows the warm medians are bitwise equal to single-device,
     so run() trajectories match to sharded-vs-single fp tolerance."""
     theta0, model, batch = _linreg()
     mesh = particle_mesh(jax.devices()[:8])
@@ -255,29 +253,11 @@ def test_sharded_warm_matches_single_warm():
 
 
 @requires_8_devices
-def test_sharded_warm_pallas_matches_single():
-    """warm_median composes with the sharded Pallas tile (the full
-    production large-n mesh config)."""
-    theta0, model, batch = _linreg()
-    mesh = particle_mesh(jax.devices()[:8])
-    single, sharded = _make_pair(
-        theta0, model, lambda: Adam(learning_rate=1e-1), mesh,
-        median="bisect", warm_median=True, warm_passes=8,
-        kernel_impl="pallas", pallas_interpret=True,
-    )
-    single.run(batch, 5)
-    sharded.run(batch, 5)
-    np.testing.assert_allclose(
-        sharded.samples, single.samples, rtol=1e-6, atol=1e-9
-    )
-
-
-@requires_8_devices
 def test_warm_median_accepts_explicit_rbf_kernel():
     """An explicit SquaredExponentialKernel() IS the default kernel: the
     constructor normalises the exact type to None, so warm_median (and
     every other RBF-only path) accepts it — on a mesh and off."""
-    from stein_tpu.kernels import SquaredExponentialKernel
+    from stein_jax.kernels import SquaredExponentialKernel
     theta0, model, batch = _linreg()
     mesh = particle_mesh(jax.devices()[:8])
     single, sharded = _make_pair(
@@ -310,87 +290,25 @@ def test_warm_median_mesh_guards():
 
 
 @requires_8_devices
-def test_sharded_pallas_matches_single_pallas():
-    """kernel_impl='pallas' on a 1-D mesh: each shard streams its
-    local-rows x gathered-global-cols tiles through the same fused kernel
-    as the single-chip Pallas path — trajectories must agree (both are
-    f32 inside the tile; the bisect medians are bitwise equal, so the
-    only divergence is row-block padding, which is masked)."""
-    theta0, model, batch = _linreg()
-    mesh = particle_mesh(jax.devices()[:8])
-    single, sharded = _make_pair(
-        theta0, model, lambda: Adam(learning_rate=1e-1), mesh,
-        median="bisect", kernel_impl="pallas", pallas_interpret=True,
-    )
-    for t in range(4):
-        aux_s = single.train_on_batch(batch)
-        aux_m = sharded.train_on_batch(batch)
-        np.testing.assert_allclose(
-            sharded.samples, single.samples, rtol=1e-6, atol=1e-9,
-            err_msg=f"step {t}",
-        )
-        np.testing.assert_allclose(
-            float(aux_m["h2"]), float(aux_s["h2"]), rtol=1e-12
-        )
-
-
-@requires_8_devices
-def test_sharded_pallas_matches_sharded_xla():
-    """The sharded Pallas tile agrees with the sharded XLA tile to f32
-    resolution (the XLA side runs f64 on CPU; the Pallas tile is f32 with
-    an exp2 exponential, ~3e-7 rel)."""
-    theta0, model, batch = _linreg(n_particles=32)
-    mesh = particle_mesh(jax.devices()[:8])
-    xla, _ = _make_pair(
-        theta0, model, lambda: Adam(learning_rate=1e-1), mesh,
-        median="bisect",
-    )
-    pallas = SVGDSampler(
-        n_particles=theta0.shape[0], log_p=model.log_p,
-        param_template=model.template(jnp.float64),
-        gd=Adam(learning_rate=1e-1), theta=jnp.asarray(theta0),
-        dtype=jnp.float64, mesh=particle_mesh(jax.devices()[:8]),
-        median="bisect", kernel_impl="pallas", pallas_interpret=True,
-    )
-    for _ in range(3):
-        xla.train_on_batch(batch)
-        pallas.train_on_batch(batch)
-    np.testing.assert_allclose(
-        pallas.samples, xla.samples, rtol=1e-4, atol=1e-7
-    )
-
-
-@requires_8_devices
-def test_sharded_pallas_option_guards():
-    """Unsupported combinations fail loudly at construction."""
-    from stein_tpu.kernels import InverseMultiquadricKernel
+@pytest.mark.parametrize("layout", ["all_gather", "ring", "2d"])
+def test_sharded_pallas_option_guards(layout):
+    """Meshes run the XLA phi path: the streaming tile is measured and
+    selected on one device only, so kernel_impl='pallas' on any mesh
+    layout fails loudly at construction instead of running untimed."""
+    from jax.sharding import Mesh
     theta0, model, _ = _linreg()
-    mesh = particle_mesh(jax.devices()[:8])
-    common = dict(
-        n_particles=theta0.shape[0], log_p=model.log_p,
-        param_template=model.template(jnp.float64), gd=Adam(),
-        theta=jnp.asarray(theta0), dtype=jnp.float64, mesh=mesh,
-        kernel_impl="pallas",
-    )
-    with pytest.raises(ValueError, match="gather-free median"):
-        SVGDSampler(**common, median="exact")
-    with pytest.raises(ValueError, match="custom kernels"):
-        SVGDSampler(**common, median="bisect",
-                    kernel=InverseMultiquadricKernel())
-    # 2-D mesh + kernel_impl='pallas' is supported since r3
-    # (test_sharded2d.py::test_sharded2d_pallas_matches_xla); a custom
-    # kernel there still refuses the fused RBF tile.
-    with pytest.raises(ValueError, match="custom kernels"):
-        from jax.sharding import Mesh
-        import numpy as _np
-        devs = _np.asarray(jax.devices()[:8]).reshape(4, 2)
+    devs = np.asarray(jax.devices()[:8])
+    if layout == "2d":
+        mesh_kw = dict(mesh=Mesh(devs.reshape(4, 2), ("particles", "model")),
+                       model_axis="model")
+    else:
+        mesh_kw = dict(mesh=particle_mesh(devs), comm=layout)
+    with pytest.raises(ValueError, match="kernel_impl='xla'"):
         SVGDSampler(
             n_particles=theta0.shape[0], log_p=model.log_p,
             param_template=model.template(jnp.float64), gd=Adam(),
             theta=jnp.asarray(theta0), dtype=jnp.float64,
-            mesh=Mesh(devs, ("particles", "model")), model_axis="model",
-            kernel_impl="pallas", median="bisect",
-            kernel=InverseMultiquadricKernel(),
+            kernel_impl="pallas", median="bisect", **mesh_kw,
         )
 
 
@@ -463,27 +381,6 @@ def test_ring_warm_matches_single_warm():
 
 
 @requires_8_devices
-def test_mesh_rejects_model_hooks():
-    """Regression (r3 review): quadratic_form=/inkernel_model= on a mesh
-    were silently IGNORED (XLA autodiff ran instead) — they must fail
-    loudly like every other option the sharded steps cannot honour."""
-    theta0, model, batch = _linreg()
-    mesh = particle_mesh(jax.devices()[:8])
-    common = dict(
-        n_particles=theta0.shape[0], log_p=model.log_p,
-        param_template=model.template(jnp.float64),
-        gd=Adam(), theta=jnp.asarray(theta0), dtype=jnp.float64,
-        mesh=mesh,
-    )
-    # quadratic_form on a mesh is now consumed — but ONLY by
-    # step_impl='fused_shard' (r4); any other mesh step still refuses.
-    with pytest.raises(ValueError, match="fused_shard"):
-        SVGDSampler(**common, quadratic_form=model.quadratic_form)
-    with pytest.raises(ValueError, match="single-device"):
-        SVGDSampler(**common, inkernel_model=lambda batch: None)
-
-
-@requires_8_devices
 def test_ring_warm_lowers_to_ring_collectives():
     """Regression (r3 review): comm='ring' + warm_median compiled the
     ALL-GATHER body — the bug was invisible to every parity test because
@@ -522,523 +419,57 @@ def test_ring_warm_lowers_to_ring_collectives():
     assert "all_gather" not in init_ring
 
 
+def _linreg_grads(theta, batch):
+    """A model-supplied gradient stage for the linear-regression model:
+    the closed-form score X^T (y - X w) - w and log_p per particle."""
+    X, y = batch["X"], batch["y"]
+    r = y.T - theta @ X.T                              # [n, n_obs]
+    grads = r @ X - theta
+    logp = (-0.5 * jnp.sum(r * r, axis=1) - 0.5 * jnp.sum(theta ** 2, 1)
+            - 0.5 * theta.shape[1] * jnp.log(2.0 * jnp.pi))
+    return logp, grads
+
+
 @requires_8_devices
-def test_ring_pallas_matches_all_gather_pallas():
-    """comm='ring' + kernel_impl='pallas' (r3): per-rotation [n_loc,
-    n_loc] tiles through the fused streaming kernel track the all-gather
-    Pallas path (same tile arithmetic, different column-block
-    accumulation order -> f32-class tolerance)."""
-    theta0, model, batch = _linreg(n_particles=32)
+@pytest.mark.parametrize("comm", ["all_gather", "ring"])
+def test_mesh_custom_grads_matches_single(comm):
+    """custom_grads on a 1-D particle mesh: gradients are per-particle,
+    so a model-supplied gradient stage runs per shard unchanged — the
+    mesh trajectory must match the single-device custom_grads run and
+    the mesh autodiff run (closed-form and autodiff scores agree to fp
+    reassociation)."""
+    theta0, model, batch = _linreg()
     mesh = particle_mesh(jax.devices()[:8])
     common = dict(
         n_particles=theta0.shape[0], log_p=model.log_p,
         param_template=model.template(jnp.float64),
-        theta=jnp.asarray(theta0), dtype=jnp.float64, mesh=mesh,
-        median="bisect", kernel_impl="pallas", pallas_interpret=True,
+        theta=jnp.asarray(theta0), dtype=jnp.float64, median="bisect",
     )
-    a = SVGDSampler(gd=Adam(learning_rate=1e-1), comm="all_gather",
-                    **common)
-    b = SVGDSampler(gd=Adam(learning_rate=1e-1), comm="ring", **common)
-    aux_a = a.train_on_batch(batch)
-    aux_b = b.train_on_batch(batch)
-    # Step 1 runs on IDENTICAL particles: ring median bitwise-equal.
-    assert float(aux_b["median"]) == float(aux_a["median"])
-    for _ in range(2):
-        aux_a = a.train_on_batch(batch)
-        aux_b = b.train_on_batch(batch)
-        # Particles have tolerance-diverged (different tile accumulation
-        # order): medians close, not equal.
-        np.testing.assert_allclose(
-            float(aux_b["median"]), float(aux_a["median"]), rtol=1e-6,
-        )
-    np.testing.assert_allclose(b.samples, a.samples, rtol=1e-5, atol=1e-8)
-
-
-@requires_8_devices
-def test_ring_warm_pallas_matches_single():
-    """The full projected-best multi-host config (ring + warm median +
-    Pallas tile) runs and tracks the single-device Pallas warm scan."""
-    theta0, model, batch = _linreg()
-    mesh = particle_mesh(jax.devices()[:8])
-    single, ring = _make_pair(
-        theta0, model, lambda: Adam(learning_rate=1e-1), mesh,
-        median="bisect", warm_median=True, warm_passes=8,
-        kernel_impl="pallas", pallas_interpret=True, comm="ring",
-    )
-    single.run(batch, 5)
-    ring.run(batch, 5)
-    # f32-class tolerance: the ring body accumulates column blocks per
-    # ppermute rotation, a different fp order than the single-device
-    # tile (same class as test_ring_pallas_matches_all_gather_pallas).
-    # The original rtol=1e-6 was calibrated while comm='ring' silently
-    # compiled the all-gather body (r3 review finding) — the real ring
-    # step is ~2.5e-6 off after 5 steps.
-    np.testing.assert_allclose(
-        ring.samples, single.samples, rtol=1e-5, atol=1e-8
-    )
-
-
-def _linreg_f32(seed=0, n_obs=40, n_feats=3, n_particles=16):
-    theta0, model, batch = _linreg(seed, n_obs, n_feats, n_particles)
-    return (
-        jnp.asarray(theta0, jnp.float32), model,
-        jax.tree_util.tree_map(
-            lambda l: jnp.asarray(l, jnp.float32), batch
-        ),
-    )
-
-
-@requires_8_devices
-def test_fused_shard_matches_single_device():
-    """step_impl='fused_shard' (the r3 fused tail split at its
-    collectives — parallel/sharded_fused.py): on an 8-device mesh the
-    scan trajectories must track BOTH single-device comparators:
-
-    - the single-device fused_gram+fused-median step (the SAME numerics
-      class: in-kernel centered Gram feeding median counts and tiles) —
-      tight tolerance, medians near-bitwise (the interpret-mode dots are
-      exact f32; only the XLA-vs-in-kernel center/tile accumulation
-      order differs);
-    - the all-XLA f32 warm mesh-free step — class tolerance.
-
-    median_collectives='rounds' here: the single-device fused median IS
-    the quad-rounds structure, so that arm is the bitwise comparator;
-    the r5 'grid' default is pinned against this arm by
-    test_fused_shard_grid_matches_rounds."""
-    theta0, model, batch = _linreg_f32()
-    mesh = particle_mesh(jax.devices()[:8])
-    common = dict(
-        n_particles=theta0.shape[0], log_p=model.log_p,
-        param_template=model.template(jnp.float32), theta=theta0,
-        dtype=jnp.float32, median="bisect", warm_median=True,
-        warm_passes=8,
-    )
-    fs = SVGDSampler(gd=Adam(learning_rate=1e-1), mesh=mesh,
-                     step_impl="fused_shard", pallas_interpret=True,
-                     median_collectives="rounds", **common)
-    aux_f = fs.run(batch, 5)
-    sg = SVGDSampler(gd=Adam(learning_rate=1e-1), step_impl="fused_gram",
-                     median_impl="fused", pallas_interpret=True, **common)
-    aux_g = sg.run(batch, 5)
-    sx = SVGDSampler(gd=Adam(learning_rate=1e-1), **common)
-    sx.run(batch, 5)
-    np.testing.assert_allclose(
-        fs.samples, sg.samples, rtol=5e-6, atol=1e-8
-    )
-    np.testing.assert_allclose(
-        fs.samples, sx.samples, rtol=5e-5, atol=1e-7
-    )
-    np.testing.assert_allclose(
-        np.asarray(aux_f["median"]), np.asarray(aux_g["median"]),
-        rtol=1e-6,
-    )
-    # Adagrad through the fused epilogue's in-kernel update rule too.
-    fa = SVGDSampler(gd=Adagrad(learning_rate=1e-1), mesh=mesh,
-                     step_impl="fused_shard", pallas_interpret=True,
-                     median_collectives="rounds", **common)
-    fa.run(batch, 3)
-    xa = SVGDSampler(gd=Adagrad(learning_rate=1e-1), **common)
-    xa.run(batch, 3)
-    np.testing.assert_allclose(
-        fa.samples, xa.samples, rtol=5e-5, atol=1e-7
-    )
-
-
-@requires_8_devices
-def test_fused_shard_epilogue_ab_equal():
-    """The fused epilogue kernel (phi combine + clip + in-kernel
-    optimizer) and the plain-XLA epilogue compute the same step to the
-    update_kernel's ~1-ulp pow-twin tolerance — the A/B that lets the
-    benchmark pick per regime without a semantics question."""
-    from stein_tpu.parallel.sharded_fused import (
-        make_sharded_fused_warm_step,
-    )
-    from stein_tpu.api import SVGDState
-
-    theta0, model, batch = _linreg_f32()
-    mesh = particle_mesh(jax.devices()[:8])
-    gd = Adam(learning_rate=1e-1)
-    n = theta0.shape[0]
-    outs = {}
-    for mode in ("fused", "xla"):
-        sampler = SVGDSampler(
-            n_particles=n, log_p=model.log_p, gd=gd,
-            param_template=model.template(jnp.float32), theta=theta0,
-            dtype=jnp.float32, median="bisect", warm_median=True,
-        )
-        step_fn, init_med = make_sharded_fused_warm_step(
-            model.log_p, sampler.unravel_fn, gd, n, sampler.state, mesh,
-            pallas_interpret=True, epilogue=mode,
-        )
-        from stein_tpu.parallel.sharded import shard_state
-        state = shard_state(sampler.state, mesh, "particles")
-        med = init_med(state.particles)
-        carry = (state, med)
-        for _ in range(3):
-            carry, aux = jax.jit(step_fn)(carry, batch)
-        outs[mode] = np.asarray(carry[0].particles)
-    # ~1 ulp/step from update_kernel's exp/log pow twin, amplified over
-    # the 3 steps (measured max 2.8e-6).
-    np.testing.assert_allclose(
-        outs["fused"], outs["xla"], rtol=1e-5, atol=1e-9
-    )
-
-
-@requires_8_devices
-def test_fused_shard_guards():
-    """fused_shard's option surface fails loudly: f32-only, 1-D
-    particle meshes only, warm bisect only."""
-    theta0, model, batch = _linreg_f32()
-    mesh = particle_mesh(jax.devices()[:8])
-
-    def make(**kw):
-        base = dict(
-            n_particles=theta0.shape[0], log_p=model.log_p,
-            param_template=model.template(jnp.float32), theta=theta0,
-            dtype=jnp.float32, mesh=mesh, step_impl="fused_shard",
-            median="bisect", warm_median=True, pallas_interpret=True,
-        )
-        base.update(kw)
-        return SVGDSampler(gd=Adam(learning_rate=1e-1), **base)
-
-    with pytest.raises(ValueError, match="f32-only"):
-        make(dtype=jnp.float64,
-             param_template=model.template(jnp.float64),
-             theta=jnp.asarray(theta0, jnp.float64))
-    # comm='ring' is LEGAL since r5 (grid median only — see
-    # test_ring_fused_shard_guards for the rounds refusal).
-    with pytest.raises(ValueError, match="warm-median"):
-        make(warm_median=False)
-    with pytest.raises(ValueError, match="kernel_impl='xla'"):
-        make(kernel_impl="pallas")
-    from jax.sharding import Mesh
-    mesh2d = Mesh(np.asarray(jax.devices()[:8]).reshape(4, 2),
-                  ("particles", "model"))
-    with pytest.raises(ValueError, match="1-D particle"):
-        make(mesh=mesh2d, model_axis="model")
-    # Single-device fused_shard is meaningless (no collectives to split).
-    with pytest.raises(ValueError, match="unknown step_impl|single-device"):
-        SVGDSampler(
-            gd=Adam(learning_rate=1e-1), n_particles=theta0.shape[0],
-            log_p=model.log_p,
-            param_template=model.template(jnp.float32), theta=theta0,
-            dtype=jnp.float32, step_impl="fused_shard",
-            median="bisect", warm_median=True,
-        )
-
-
-@requires_8_devices
-def test_fused_shard_checkpoint_roundtrip(tmp_path):
-    """save/restore across the fused_shard step: the restored sampler
-    continues the exact trajectory (same contract as the other mesh
-    steps)."""
-    theta0, model, batch = _linreg_f32()
-    mesh = particle_mesh(jax.devices()[:8])
-
-    def make():
-        return SVGDSampler(
-            n_particles=theta0.shape[0], log_p=model.log_p,
-            param_template=model.template(jnp.float32), theta=theta0,
-            dtype=jnp.float32, mesh=mesh, step_impl="fused_shard",
-            median="bisect", warm_median=True, pallas_interpret=True,
-            gd=Adam(learning_rate=1e-1),
-        )
-
-    a = make()
-    a.run(batch, 3)
-    path = tmp_path / "ck.npz"
-    a.save(path)
-    a.run(batch, 2)
-    b = make()
-    b.restore(path)
-    b.run(batch, 2)
-    np.testing.assert_allclose(b.samples, a.samples, rtol=1e-6, atol=1e-9)
-
-
-@requires_8_devices
-def test_fused_shard_glm_matches_autodiff_grads():
-    """fused_shard + quadratic_form (the GLM mesh path): gathers theta
-    ONLY (half the collective bytes) and derives gradients from the
-    gathered block with one MXU dot — the trajectory must match the
-    same fused_shard step with vmap-autodiff gradients (exact algebra;
-    fp-order differences only), and log_p aux must agree. Guard: the
-    hook is refused off fused_shard on a mesh."""
-    theta0, model, _ = _linreg_f32()
-    from stein_tpu.models import LinearRegressionModel
-    import jax.numpy as jnp_
-    rng = np.random.default_rng(2)
-    p = theta0.shape[1]
-    lrmodel = LinearRegressionModel(p)
-    X = rng.normal(size=(40, p)).astype(np.float32)
-    y = (X @ (rng.normal(size=(p, 1)) * 2.0)).astype(np.float32)
-    batch = lrmodel.sufficient_batch(
-        {"X": jnp_.asarray(X), "y": jnp_.asarray(y)}
-    )
-    mesh = particle_mesh(jax.devices()[:8])
-    common = dict(
-        n_particles=theta0.shape[0], log_p=lrmodel.log_p,
-        param_template=lrmodel.template(jnp.float32), theta=theta0,
-        dtype=jnp.float32, median="bisect", warm_median=True,
-        warm_passes=8, mesh=mesh, step_impl="fused_shard",
-        pallas_interpret=True,
-    )
-    a = SVGDSampler(gd=Adam(learning_rate=1e-1), **common)
-    aux_a = a.run(batch, 5)
-    b = SVGDSampler(gd=Adam(learning_rate=1e-1),
-                    quadratic_form=lrmodel.quadratic_form, **common)
-    aux_b = b.run(batch, 5)
-    np.testing.assert_allclose(b.samples, a.samples, rtol=1e-4,
-                               atol=1e-7)
-    np.testing.assert_allclose(
-        np.asarray(aux_b["log_p_mean"]), np.asarray(aux_a["log_p_mean"]),
-        rtol=1e-4,
-    )
-    with pytest.raises(ValueError, match="fused_shard"):
-        SVGDSampler(
-            gd=Adam(learning_rate=1e-1),
-            n_particles=theta0.shape[0], log_p=lrmodel.log_p,
-            param_template=lrmodel.template(jnp.float32), theta=theta0,
-            dtype=jnp.float32, mesh=mesh,
-            quadratic_form=lrmodel.quadratic_form,
-        )
-
-
-@requires_8_devices
-def test_fused_shard_grid_matches_rounds():
-    """median_collectives='grid' (the r5 O(1)-collective warm median,
-    the fused_shard default) vs 'rounds' (the r4 chain): both subdivide
-    the SAME verified candidate bracket to width/256 (g1=16 x g2=16 vs
-    4 quad-ary rounds), so medians agree to that bound and trajectories
-    to the bandwidth-perturbation class."""
-    theta0, model, batch = _linreg_f32()
-    mesh = particle_mesh(jax.devices()[:8])
-    common = dict(
-        n_particles=theta0.shape[0], log_p=model.log_p,
-        param_template=model.template(jnp.float32), theta=theta0,
-        dtype=jnp.float32, median="bisect", warm_median=True,
-        warm_passes=8, mesh=mesh, step_impl="fused_shard",
-        pallas_interpret=True,
-    )
-    g = SVGDSampler(gd=Adam(learning_rate=1e-1),
-                    median_collectives="grid", **common)
-    aux_g = g.run(batch, 5)
-    r = SVGDSampler(gd=Adam(learning_rate=1e-1),
-                    median_collectives="rounds", **common)
-    aux_r = r.run(batch, 5)
-    # Step 1 runs on IDENTICAL particles: the two searches subdivide the
-    # same verified bracket, so medians agree to the width/256 bound.
-    # Later steps run on class-diverged particle sets (same behaviour as
-    # every cross-impl pair in this file), so only the trajectory-class
-    # bound applies there.
-    np.testing.assert_allclose(
-        float(np.asarray(aux_g["median"])[0]),
-        float(np.asarray(aux_r["median"])[0]), rtol=3e-3,
-    )
-    np.testing.assert_allclose(g.samples, r.samples, rtol=2e-2,
-                               atol=2e-4)
-    with pytest.raises(ValueError, match="median_collectives"):
-        SVGDSampler(gd=Adam(learning_rate=1e-1),
-                    median_collectives="bogus", **common)
-
-
-@requires_8_devices
-def test_fused_shard_grid_lowers_to_two_median_psums():
-    """Structural pin of the r5 collective collapse (the VERDICT-r4 #2
-    contract): the grid warm step must lower to exactly FOUR all-reduces
-    — 2 for the median (the batched grid-count psum whose result both
-    selects the bracket and locates the g1-ary sub-bin, plus one g2-ary
-    round) + the clip-norm psum + the log_p pmean, ALL straight-line (4
-    textual = 4 executed) — while the rounds arm shows FIVE textually
-    (pmax + endpoint-count psum + the quad-round psum + the same 2) of
-    which the quad-round one sits inside the warm fori_loop body and
-    EXECUTES warm_passes//2 = 4 times: 8 executed per step. Counting
-    the lowered text keeps the collective budget from silently
-    regressing (pattern: test_ring_warm_lowers_to_ring_...)."""
-    theta0, model, batch = _linreg_f32()
-    mesh = particle_mesh(jax.devices()[:8])
-    common = dict(
-        n_particles=theta0.shape[0], log_p=model.log_p,
-        param_template=model.template(jnp.float32), theta=theta0,
-        dtype=jnp.float32, median="bisect", warm_median=True,
-        warm_passes=8, mesh=mesh, step_impl="fused_shard",
-        pallas_interpret=True,
-    )
-
-    def n_all_reduce(s):
-        med0 = jnp.asarray(0.5, jnp.float32)
-        txt = jax.jit(s._warm_step_fn).lower(
-            (s.state, med0), batch
-        ).as_text()
-        return txt.count("all_reduce") + txt.count("all-reduce")
-
-    g = SVGDSampler(gd=Adam(learning_rate=1e-1),
-                    median_collectives="grid", **common)
-    r = SVGDSampler(gd=Adam(learning_rate=1e-1),
-                    median_collectives="rounds", **common)
-    assert n_all_reduce(g) == 4, n_all_reduce(g)
-    # 5 textual; the fori_loop-resident quad-round psum runs 4x.
-    assert n_all_reduce(r) == 5, n_all_reduce(r)
-
-
-@requires_8_devices
-def test_ring_fused_shard_matches_all_gather():
-    """comm='ring' + step_impl='fused_shard' (r5): median-row packets
-    and gt blocks circulate with ppermute — NOTHING gathers — yet the
-    counted (row, col) multiset is identical to the all-gather grid
-    arm, so step-1 medians agree to the width/2**warm_passes bound (the
-    centers differ only in psum-vs-gathered-mean summation order) and
-    trajectories to the tile-accumulation class."""
-    theta0, model, batch = _linreg_f32()
-    mesh = particle_mesh(jax.devices()[:8])
-    common = dict(
-        n_particles=theta0.shape[0], log_p=model.log_p,
-        param_template=model.template(jnp.float32), theta=theta0,
-        dtype=jnp.float32, median="bisect", warm_median=True,
-        warm_passes=8, mesh=mesh, step_impl="fused_shard",
-        pallas_interpret=True,
-    )
-    a = SVGDSampler(gd=Adam(learning_rate=1e-1), comm="all_gather",
-                    **common)
-    aux_a = a.run(batch, 5)
-    r = SVGDSampler(gd=Adam(learning_rate=1e-1), comm="ring", **common)
-    aux_r = r.run(batch, 5)
-    np.testing.assert_allclose(
-        float(np.asarray(aux_r["median"])[0]),
-        float(np.asarray(aux_a["median"])[0]), rtol=3e-3,
-    )
-    np.testing.assert_allclose(r.samples, a.samples, rtol=2e-2,
-                               atol=2e-4)
-
-    # GLM ring: theta-only circulation, block gradients recomputed per
-    # rotation from the quadratic form — exact algebra, so it tracks
-    # the autodiff ring arm tightly.
-    sb = model.sufficient_batch(batch)
-    g = SVGDSampler(gd=Adam(learning_rate=1e-1), comm="ring",
-                    quadratic_form=model.quadratic_form, **common)
-    g.run(sb, 5)
-    np.testing.assert_allclose(g.samples, r.samples, rtol=1e-4,
-                               atol=1e-7)
-
-
-@requires_8_devices
-def test_ring_fused_shard_lowers_to_ring_collectives():
-    """Structural pin of the r5 ring fused step: the lowered HLO must
-    circulate with collective_permute and must NEVER all-gather; its
-    all-reduce budget is SIX straight-line (center psum + hi_bound pmax
-    + grid-count psum + g2 psum + clip psum + log_p pmean) vs the
-    all-gather grid arm's four (center/hi_bound ride the gathered
-    block there)."""
-    theta0, model, batch = _linreg_f32()
-    mesh = particle_mesh(jax.devices()[:8])
-    s = SVGDSampler(
-        n_particles=theta0.shape[0], log_p=model.log_p,
-        param_template=model.template(jnp.float32), theta=theta0,
-        dtype=jnp.float32, median="bisect", warm_median=True,
-        warm_passes=8, mesh=mesh, step_impl="fused_shard",
-        pallas_interpret=True, comm="ring",
-        gd=Adam(learning_rate=1e-1),
-    )
-    med0 = jnp.asarray(0.5, jnp.float32)
-    txt = jax.jit(s._warm_step_fn).lower((s.state, med0), batch).as_text()
-    assert "collective_permute" in txt
-    assert "all_gather" not in txt and "all-gather" not in txt
-    n_ar = txt.count("all_reduce") + txt.count("all-reduce")
-    assert n_ar == 6, n_ar
-    # Cold seed: ring circulation, no gather (the r3 ring search).
-    init_txt = s._warm_init_med.lower(s.state.particles).as_text()
-    assert "collective_permute" in init_txt
-    assert "all_gather" not in init_txt
-
-
-@requires_8_devices
-def test_ring_fused_shard_guards():
-    """ring fused_shard is grid-only; rounds raises loudly."""
-    theta0, model, batch = _linreg_f32()
-    mesh = particle_mesh(jax.devices()[:8])
-    with pytest.raises(ValueError, match="grid"):
-        SVGDSampler(
-            n_particles=theta0.shape[0], log_p=model.log_p,
-            param_template=model.template(jnp.float32), theta=theta0,
-            dtype=jnp.float32, median="bisect", warm_median=True,
-            mesh=mesh, step_impl="fused_shard", comm="ring",
-            median_collectives="rounds", gd=Adam(learning_rate=1e-1),
-        )
-
-
-@requires_8_devices
-def test_mesh_custom_grads_matches_single():
-    """custom_grads on a 1-D particle mesh (r5): gradients are
-    per-particle, so the model-supplied kernel (BayesianNNModel.
-    pallas_grads) runs per shard unchanged — the mesh trajectories must
-    match the single-device custom_grads run exactly (same exact
-    median, same contraction order) and the mesh autodiff run to the
-    hand-derived-backward's fp-reassociation class."""
-    rng = np.random.default_rng(4)
-    n_particles = 16
-    X = rng.uniform(size=(20, 1))
-    y = np.cos(10 * X) * (5 * X) + rng.normal(size=(20, 1)) * 0.1
-    model = BayesianNNModel(1, 8, 20, 20)
-    batch = {"X": jnp.asarray(X, jnp.float32),
-             "y": jnp.asarray(y, jnp.float32)}
-    from stein_tpu.utils.ravel import template_unraveler
-    n_params, _ = template_unraveler(model.template(jnp.float32))
-    theta0 = jnp.asarray(
-        rng.normal(size=(n_particles, n_params)) * 0.05, jnp.float32)
-    mesh = particle_mesh(jax.devices()[:8])
-    hook = model.pallas_grads(interpret=True)
-    common = dict(
-        n_particles=n_particles, log_p=model.log_p,
-        param_template=model.template(jnp.float32), theta=theta0,
-        dtype=jnp.float32, median="bisect",
-    )
-    mc = SVGDSampler(gd=Adam(learning_rate=1e-2), mesh=mesh,
-                     custom_grads=hook, **common)
-    sc = SVGDSampler(gd=Adam(learning_rate=1e-2), custom_grads=hook,
+    mc = SVGDSampler(gd=Adam(learning_rate=1e-1), mesh=mesh, comm=comm,
+                     custom_grads=_linreg_grads, **common)
+    sc = SVGDSampler(gd=Adam(learning_rate=1e-1),
+                     custom_grads=_linreg_grads, **common)
+    ma = SVGDSampler(gd=Adam(learning_rate=1e-1), mesh=mesh, comm=comm,
                      **common)
-    ma = SVGDSampler(gd=Adam(learning_rate=1e-2), mesh=mesh, **common)
     for _ in range(3):
-        mc.train_on_batch(batch)
+        aux_c = mc.train_on_batch(batch)
         sc.train_on_batch(batch)
-        ma.train_on_batch(batch)
-    np.testing.assert_allclose(mc.samples, sc.samples, rtol=1e-6,
-                               atol=1e-9)
-    np.testing.assert_allclose(mc.samples, ma.samples, rtol=1e-3,
-                               atol=1e-6)
+        aux_a = ma.train_on_batch(batch)
+    np.testing.assert_allclose(mc.samples, sc.samples, rtol=1e-9,
+                               atol=1e-12)
+    np.testing.assert_allclose(mc.samples, ma.samples, rtol=1e-9,
+                               atol=1e-12)
+    np.testing.assert_allclose(float(aux_c["log_p_mean"]),
+                               float(aux_a["log_p_mean"]), rtol=1e-9)
 
-    # fused_shard consumes the hook in its gradient stage too.
-    fs = SVGDSampler(gd=Adam(learning_rate=1e-2), mesh=mesh,
-                     custom_grads=hook, warm_median=True,
-                     step_impl="fused_shard", pallas_interpret=True,
-                     median_collectives="rounds", **common)
-    fa = SVGDSampler(gd=Adam(learning_rate=1e-2), mesh=mesh,
-                     warm_median=True, step_impl="fused_shard",
-                     pallas_interpret=True,
-                     median_collectives="rounds", **common)
-    for _ in range(3):
-        fs.train_on_batch(batch)
-        fa.train_on_batch(batch)
-    np.testing.assert_allclose(fs.samples, fa.samples, rtol=1e-3,
-                               atol=1e-6)
-
-    # Guards: 2-D meshes refuse (params sharded); both gradient hooks
-    # together refuse.
+    # The 2-D mesh refuses: its parameter dimension is sharded.
     from jax.sharding import Mesh
     mesh2d = Mesh(np.asarray(jax.devices()[:8]).reshape(4, 2),
                   ("particles", "model"))
     with pytest.raises(ValueError, match="1-D particle"):
-        SVGDSampler(gd=Adam(learning_rate=1e-2), mesh=mesh2d,
-                    model_axis="model", custom_grads=hook, **common)
-    theta_l, model_l, _ = _linreg_f32()
-    with pytest.raises(ValueError, match="both replace"):
-        SVGDSampler(
-            gd=Adam(learning_rate=1e-2), mesh=mesh,
-            n_particles=theta_l.shape[0], log_p=model_l.log_p,
-            param_template=model_l.template(jnp.float32), theta=theta_l,
-            dtype=jnp.float32, median="bisect", warm_median=True,
-            step_impl="fused_shard", pallas_interpret=True,
-            custom_grads=lambda t, b: (t[:, 0], t),
-            quadratic_form=model_l.quadratic_form,
-        )
+        SVGDSampler(gd=Adam(learning_rate=1e-1), mesh=mesh2d,
+                    model_axis="model", custom_grads=_linreg_grads,
+                    **common)
 
 
 @requires_8_devices
@@ -1062,3 +493,52 @@ def test_sharded_ksd_matches_single_device():
         np.testing.assert_allclose(k_m, k_s, rtol=1e-9,
                                    err_msg=f"u_statistic={u}")
         assert np.isfinite(k_m)
+
+
+MESH_MEDIAN_CASES = {
+    # name: (mesh kind, sampler options, rtol on the particles)
+    "all_gather_exact": ("1d", dict(median="exact"), 1e-9),
+    "all_gather_bisect": ("1d", dict(median="bisect"), 1e-6),
+    "all_gather_binned": ("1d", dict(median="binned"), 1e-6),
+    "all_gather_warm": ("1d", dict(median="bisect", warm_median=True), 1e-9),
+    "ring_bisect": ("1d", dict(median="bisect", comm="ring"), 1e-6),
+    "ring_binned": ("1d", dict(median="binned", comm="ring"), 1e-6),
+    "ring_warm": ("1d", dict(median="bisect", warm_median=True,
+                             comm="ring"), 1e-9),
+    "2d_exact": ("2d", dict(median="exact", model_axis="model"), 1e-9),
+    "2d_bisect": ("2d", dict(median="bisect", model_axis="model"), 1e-6),
+    "2d_warm_rounds": ("2d", dict(median="bisect", warm_median=True,
+                                  model_axis="model",
+                                  median_collectives="rounds"), 1e-9),
+}
+
+
+@requires_8_devices
+@pytest.mark.parametrize("case", sorted(MESH_MEDIAN_CASES))
+def test_mesh_step_matches_single_device_per_median(case):
+    """Every mesh layout and median mode against the single-device
+    sampler with the same median (the single-device binned median counts
+    the same histogram the mesh psums; bisect with every row counted is
+    the exact median on both sides)."""
+    from jax.sharding import Mesh
+    kind, kw, rtol = MESH_MEDIAN_CASES[case]
+    theta0, model, batch = _linreg(n_particles=32, n_feats=4)
+    devs = np.asarray(jax.devices()[:8])
+    mesh = (Mesh(devs.reshape(4, 2), ("particles", "model"))
+            if kind == "2d" else particle_mesh(jax.devices()[:8]))
+    single_kw = {k: v for k, v in kw.items()
+                 if k not in ("comm", "model_axis", "median_collectives")}
+    common = dict(
+        n_particles=theta0.shape[0], log_p=model.log_p,
+        param_template=model.template(jnp.float64),
+        theta=jnp.asarray(theta0), dtype=jnp.float64,
+    )
+    single = SVGDSampler(gd=Adam(learning_rate=1e-1), **common, **single_kw)
+    sharded = SVGDSampler(gd=Adam(learning_rate=1e-1), mesh=mesh, **common,
+                          **kw)
+    aux_s = single.run(batch, 4)
+    aux_m = sharded.run(batch, 4)
+    np.testing.assert_allclose(sharded.samples, single.samples, rtol=rtol,
+                               atol=rtol * 1e-2)
+    np.testing.assert_allclose(np.asarray(aux_m["h2"]),
+                               np.asarray(aux_s["h2"]), rtol=rtol)

@@ -7,15 +7,13 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import Mesh
 
-from stein_tpu import SVGDSampler, Adam
-from stein_tpu.api import SVGDState
-from stein_tpu.models import LinearRegressionModel
-from stein_tpu.parallel.sharded2d import make_sharded2d_step
-from stein_tpu.utils.ravel import template_unraveler
+from stein_jax import SVGDSampler, Adam
+from stein_jax.api import SVGDState
+from stein_jax.models import LinearRegressionModel
+from stein_jax.parallel.sharded2d import make_sharded2d_step
+from stein_jax.utils.ravel import template_unraveler
 
-requires_8_devices = pytest.mark.skipif(
-    jax.device_count() < 8, reason="needs 8 fake CPU devices"
-)
+requires_8_devices = pytest.mark.usefixtures("eight_devices")
 
 
 def _setup(n_particles=16, n_feats=8, seed=0):
@@ -76,7 +74,7 @@ def test_2d_imq_matches_single_device():
     reproduce the single-device generic path (kernels.generic_svgd_phi) —
     the model-axis Gram psum and the two-matmul K/W contraction commute
     with the parameter sharding."""
-    from stein_tpu.kernels import InverseMultiquadricKernel
+    from stein_jax.kernels import InverseMultiquadricKernel
     theta0, model, batch = _setup()
     n, p = theta0.shape
     kern = InverseMultiquadricKernel(c=1.0, beta=-0.5)
@@ -128,7 +126,7 @@ def test_2d_warm_median_matches_single_warm():
     """warm_median on a 2-D mesh: run()'s scan carries the previous
     median; the warm counts run on the psum'd local D rows
     (sharded_warm_bisect_median_on_D over the particle axis). Tracks the
-    single-chip warm trajectory to the same tolerance as the cold 2-D
+    single-device warm trajectory to the same tolerance as the cold 2-D
     bisect path (the split-Gram psum reorders the D reduction)."""
     theta0, model, batch = _setup()
     n, p = theta0.shape
@@ -224,50 +222,6 @@ def test_2d_sharded_divisibility_errors():
             log_p=model.log_p, unravel_fn=unravel, gd=gd,
             n_particles=16, n_params=7, state=state, mesh=mesh,
         )
-
-
-@requires_8_devices
-def test_sharded2d_pallas_matches_xla():
-    """kernel_impl='pallas' on the 2-D mesh (r3): exp2 + contraction
-    stream over the already-materialised D rows (K never in HBM) — must
-    track the 2-D XLA tile to the f32/exp2 tolerance class, with
-    bitwise-equal bisect medians on the same D rows at step 1."""
-    theta0, model, batch = _setup()
-    common = dict(
-        n_particles=theta0.shape[0], log_p=model.log_p,
-        param_template=model.template(jnp.float64),
-        theta=jnp.asarray(theta0), dtype=jnp.float64,
-        mesh=_mesh_4x2(), model_axis="model", median="bisect",
-    )
-    a = SVGDSampler(gd=Adam(learning_rate=1e-1), **common)
-    b = SVGDSampler(gd=Adam(learning_rate=1e-1), kernel_impl="pallas",
-                    pallas_interpret=True, **common)
-    aux_a = a.train_on_batch(batch)
-    aux_b = b.train_on_batch(batch)
-    assert float(aux_b["median"]) == float(aux_a["median"])
-    for _ in range(2):
-        a.train_on_batch(batch)
-        b.train_on_batch(batch)
-    np.testing.assert_allclose(b.samples, a.samples, rtol=1e-5, atol=1e-8)
-
-
-@requires_8_devices
-def test_sharded2d_warm_pallas_runs():
-    """warm_median composes with the 2-D Pallas tile."""
-    theta0, model, batch = _setup()
-    common = dict(
-        n_particles=theta0.shape[0], log_p=model.log_p,
-        param_template=model.template(jnp.float64),
-        theta=jnp.asarray(theta0), dtype=jnp.float64,
-        mesh=_mesh_4x2(), model_axis="model", median="bisect",
-        warm_median=True, warm_passes=8,
-    )
-    a = SVGDSampler(gd=Adam(learning_rate=1e-1), **common)
-    b = SVGDSampler(gd=Adam(learning_rate=1e-1), kernel_impl="pallas",
-                    pallas_interpret=True, **common)
-    a.run(batch, 4)
-    b.run(batch, 4)
-    np.testing.assert_allclose(b.samples, a.samples, rtol=1e-5, atol=1e-8)
 
 
 @requires_8_devices

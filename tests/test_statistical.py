@@ -6,7 +6,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from stein_tpu import SVGDSampler, Adam, Adagrad
+from stein_jax import SVGDSampler, Adam, Adagrad
 
 
 def _gaussian_target(mu, cov):
@@ -99,7 +99,7 @@ def test_bimodal_1d_mass_split():
 
 def test_bfloat16_end_to_end_posterior():
     """Whole-sampler bf16 (particles, moments, phi — the XLA path; the
-    one dtype a TPU user reaches for to halve HBM traffic): posterior
+    dtype a user reaches for to halve memory traffic): posterior
     moments land inside the Monte-Carlo band, at a coarser — measured
     and documented — tolerance than f32.
 
@@ -112,7 +112,7 @@ def test_bfloat16_end_to_end_posterior():
     = 0.43), diag-cov shrink ~20-25% below truth from the bf16
     quantization floor (relative particle resolution 2^-9) — vs f32's
     mean err 0.003. bf16 trades that statistical coarseness for ~2x
-    memory; RESULTS.md r4 documents the row."""
+    memory."""
     mu = np.array([1.0, -2.0, 0.5])
     cov = np.array([
         [1.0, 0.7, 0.2],
@@ -150,7 +150,7 @@ def test_bfloat16_end_to_end_posterior():
 def test_warm_median_posterior_statistically_equal():
     """The warm search's per-step bandwidth error (up to the binding-bracket
     bound ~1.1% at warm_passes=6 on fast-drift steps — see
-    benchmarks/RESULTS.md) must be STATISTICALLY invisible: warm and cold
+    ops/median.warm_bisect_median) must be STATISTICALLY invisible: warm and cold
     trajectories from the same init converge to the same posterior
     moments, even though the trajectories themselves diverge chaotically."""
     mu = np.array([1.0, -2.0, 0.5])
